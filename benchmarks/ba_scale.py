@@ -1,4 +1,4 @@
-"""Scratch: global-BA per-LM-iteration timing, dense Schur vs matrix-free CG."""
+"""Global-BA per-LM-iteration timing, dense Schur vs matrix-free CG."""
 import sys
 import time
 
@@ -8,30 +8,7 @@ import jax.numpy as jnp
 
 from mavmap_tpu.ba import build_problem
 from mavmap_tpu.ba.core import _lm_loop
-from mavmap_tpu.models import camera as cam
-from mavmap_tpu.ops.rotation import rotmat_from_rvec as rfr
-
-
-def make(I, P, obs_per_img, seed=0):
-    rng = np.random.default_rng(seed)
-    K = np.zeros((1, 9), np.float32)
-    K[0, :4] = [700.0, 700.0, 400.0, 300.0]
-    X = (rng.normal(size=(P, 3)) * np.array([40, 40, 4]) + np.array([0, 0, 30])).astype(np.float32)
-    poses = np.stack([
-        np.concatenate([rng.normal(size=3) * 0.05, [i * 0.4, (i % 7) * 0.5, 0]])
-        for i in range(I)
-    ]).astype(np.float32)
-    oi, op, uv = [], [], []
-    for i in range(I):
-        R = np.asarray(rfr(jnp.asarray(poses[i, :3])))
-        Xc = X @ R.T + poses[i, 3:]
-        u = np.asarray(cam.world2image(jnp.asarray(Xc, jnp.float32), 1, jnp.asarray(K[0])))
-        sel = rng.permutation(P)[:obs_per_img]
-        oi += [i] * obs_per_img
-        op += list(sel)
-        uv += list(u[sel] + rng.normal(size=(obs_per_img, 2)) * 0.3)
-    states = [1, 2] + [0] * (I - 2)
-    return poses, X, K, np.array(oi), np.array(op), np.array(uv, np.float32), states
+from mavmap_tpu.utils.synthetic import make_ba_scene
 
 
 def bench(prob, solver, iters=10, reps=3, cg_iters=100):
@@ -49,7 +26,7 @@ def bench(prob, solver, iters=10, reps=3, cg_iters=100):
 
 if __name__ == "__main__":
     I, P, OPI = 200, 50000, 1000
-    poses, X, K, oi, op, uv, states = make(I, P, OPI)
+    poses, X, K, oi, op, uv, states = make_ba_scene(I, P, OPI)
     poses0 = poses.copy()
     poses0[2:] += np.random.default_rng(1).normal(size=poses0[2:].shape) * 0.005
     X0 = X + np.random.default_rng(2).normal(size=X.shape).astype(np.float32) * 0.05

@@ -15,16 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-if os.environ.get("MAVMAP_TPU_FORCE_CPU") == "1":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 import jax
-
-cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from mavmap_tpu.ba import BAOptions
 from mavmap_tpu.features import ArrayFeatureProvider

@@ -29,13 +29,6 @@ import numpy as np
 def main(num_images=20):
     import jax
 
-    try:
-        cache_dir = str(Path(__file__).resolve().parent.parent / ".jax_cache")
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
-
     from PIL import Image
 
     from mavmap_tpu.cli import main as cli_main

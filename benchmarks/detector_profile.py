@@ -1,4 +1,4 @@
-"""Stage-level timing of the on-device detector (TPU or CPU).
+"""Stage-level timing of the on-device detector.
 
 Times, per 752x480 frame at steady state (warm executables):
   detect-only     pyramid + NMS + per-cell top-k + sub-pixel (no desc)
@@ -16,11 +16,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import jax.numpy as jnp
 import numpy as np
 

@@ -6,9 +6,8 @@ Measures, through the PIPELINE-LEVEL entry points (not bespoke problems):
   - the back-fill fan-out (batch_register_pairs) via
     process_remaining_images with half the frames skipped.
 
-Real ICI scaling needs a real multi-chip slice; the virtual CPU mesh
-validates the sharding/collective layout and records the host-mesh
-numbers the driver environment can reproduce.
+Real scaling needs real cards (chip_smoke.py --mesh4 runs the mesh on
+four); the virtual CPU mesh validates the sharding/collective layout only.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python benchmarks/mesh_scaling.py [num_images]

@@ -1,4 +1,4 @@
-"""Benchmark: 100-image serpentine survey end-to-end on one TPU chip."""
+"""Benchmark: 100-image serpentine survey end-to-end on one GPU."""
 import time
 import numpy as np
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Long-survey end-to-end benchmark on one TPU chip.
+"""Long-survey end-to-end benchmark on one GPU.
 
 Usage: python benchmarks/pipeline_scale.py [num_images] [rows] [sweeps]
 Defaults: 500 10 1. Prints registration rate, fps, sub-map count, points,
@@ -6,17 +6,12 @@ and ATE vs the synthetic ground truth.
 """
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import numpy as np
 from mavmap_tpu.features import ArrayFeatureProvider
 from mavmap_tpu.loop import train_voc_tree
@@ -34,7 +29,8 @@ scene = make_uav_scene(num_images=N, num_points=120 * N, relief=10.0,
 # render at N=1000 — cache them so benchmark iterations measure the
 # pipeline, not the fixture.
 cap = 1024
-_fc = f"/tmp/pipeline_scale_feats_{N}_{ROWS}_13.npz"
+_fc = os.path.join(tempfile.gettempdir(),
+                   f"pipeline_scale_feats_{N}_{ROWS}_13.npz")
 if os.path.exists(_fc):
     with np.load(_fc) as d:
         feats = [(d[f"k{i}"], d[f"d{i}"]) for i in range(N)]
@@ -85,7 +81,7 @@ try:
     stats = jax.local_devices()[0].memory_stats() or {}
     peak = stats.get("peak_bytes_in_use", 0)
     if peak:
-        print(f"HBM watermark: {peak / 2**30:.2f} GiB", flush=True)
+        print(f"device memory peak: {peak / 2**30:.2f} GiB", flush=True)
 except Exception:
     pass
 if res.timings:
@@ -93,7 +89,7 @@ if res.timings:
                                   for k, v in res.timings.items()), flush=True)
 # Drift profile: per-100-frame RMSE under ONE global alignment + closure
 # commit counters — shows where along the survey the error accumulates and
-# how much closure machinery fired (VERDICT r04 item 3 instrumentation).
+# how much closure machinery fired.
 from mavmap_tpu.utils.synthetic import mapper_ate_profile
 
 prof = mapper_ate_profile(m, scene, block=100)

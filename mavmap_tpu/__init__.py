@@ -1,42 +1,38 @@
-"""mavmap_tpu — a TPU-native sequential structure-from-motion framework.
+"""mavmap_tpu — a sequential structure-from-motion framework in JAX.
 
-A ground-up JAX/XLA/Pallas redesign (NOT a port) with the capabilities of
-the mavmap reference system (/root/reference): feature detection + matching,
-PINHOLE/OPENCV/CATA camera models, batched essential-matrix (5-point) and
-P3P RANSAC, DLT triangulation, incremental sequential mapping with sub-map
-restart/merge, vocabulary-tree loop detection, and robust Levenberg-Marquardt
-bundle adjustment via Schur-complement reduction — extended with IMU rotation
-priors and ground-control-point geo-registration, and scaled over TPU device
+A ground-up JAX/XLA redesign (NOT a port) with the capabilities of the
+mavmap reference system: feature detection + matching, PINHOLE/OPENCV/CATA
+camera models, batched essential-matrix (5-point) and P3P RANSAC, DLT
+triangulation, incremental sequential mapping with sub-map restart/merge,
+vocabulary-tree loop detection, and robust Levenberg-Marquardt bundle
+adjustment via Schur-complement reduction — extended with IMU rotation
+priors and ground-control-point geo-registration, and scaled over device
 meshes with jax.sharding collectives.
 
 Design stance (see SURVEY.md §7): struct-of-arrays + fixed capacities +
 masks; every estimator batched (vmap over RANSAC hypotheses); matching and
-BA assembly as MXU-friendly matmuls / Pallas kernels; explicit PRNG keys.
+BA assembly as matmuls and segment reductions; explicit PRNG keys.
 """
 
 __version__ = "0.1.0"
 
 import os as _os
 
-if _os.environ.get("MAVMAP_TPU_NO_CONFIG") != "1":
-    import jax as _jax
+import jax as _jax
 
-    # Geometry (minimal solvers, triangulation, BA) needs true f32 matmuls;
-    # XLA:TPU's default bf16-pass dot drops relative-pose accuracy from
-    # ~1e-6 to ~1e-2. Bandwidth-bound kernels that tolerate bf16 (descriptor
-    # matching, voc-tree scoring) request lower precision explicitly at the
-    # call site.
-    _jax.config.update("jax_default_matmul_precision", "highest")
+# Where the persistent compilation cache lives when JAX_COMPILATION_CACHE_DIR
+# does not say: a fixed directory of the checkout (listed in .gitignore).
+DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
-    # Persistent compilation cache: the mapper's kernels are stable across
-    # processes; without this every CLI/bench invocation pays minutes of
-    # XLA compilation.
-    _cache_dir = _os.environ.get(
-        "MAVMAP_TPU_JAX_CACHE", _os.path.expanduser("~/.cache/mavmap_tpu_jax")
-    )
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+# Geometry (minimal solvers, triangulation, BA) needs true f32 matmuls;
+# on the GPU the default precision runs float32 products in TF32 (about
+# three decimal digits), which costs relative-pose accuracy.
+_jax.config.update("jax_default_matmul_precision", "highest")
+
+# Persistent compilation cache: the mapper's programs are stable across
+# processes, so a later run skips their compilation. JAX reads
+# JAX_COMPILATION_CACHE_DIR itself; only without it is a directory set.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)

@@ -1,10 +1,9 @@
 """Column-arithmetic residuals, Jacobians, and block products for BA.
 
-TPU layout note: the straightforward formulation of per-observation
+Layout note: the straightforward formulation of per-observation
 Jacobians — vmap(jacfwd(residual)) producing (O, 2, 6) tensors and
 einsum("oki,okj->oij") products — forces XLA into tiny-minor-dimension
-layouts that cost 10-20 ms per op at O=200k on v5e (measured), ~100x off
-bandwidth. This module computes the same quantities as pure elementwise
+layouts. This module computes the same quantities as pure elementwise
 arithmetic over (O,) COLUMNS, which XLA fuses into a handful of
 bandwidth-bound kernels:
 
@@ -14,7 +13,7 @@ bandwidth-bound kernels:
     all three camera models incl. distortion without hand-derived math);
   - all small matrix products (J^T W J blocks, couplings, matvec pieces)
     are unrolled Python loops over columns, stacked once at the end into
-    flat (O, K) arrays for the Pallas segment reducers.
+    flat (O, K) arrays for the segment reductions.
 
 Matches the cost model of reference bundle_adjustment.cc:289-387 (autodiff
 BACostFunction) exactly; regression-tested against the jacfwd path.
@@ -199,11 +198,9 @@ def stack_cols_wide(cols):
     contribution blocks).
 
     Stacks along axis 0 then transposes: concatenating many (O, 1) pieces
-    makes XLA materialize each as a lane-padded f32[O, 1]{T(8,128)} temp —
-    128x memory blow-up, measured OOM at O=1M with K=42. (1, O) pieces pad
-    8x at worst and the transpose is a single efficient relayout. For the
-    small in-loop stacks (K=3/6) the axis=-1 form fuses better — use
-    stack_cols there."""
+    can make XLA materialize each as a padded (O, 1) temp; the transpose
+    is a single relayout. For the small in-loop stacks (K=3/6) the
+    axis=-1 form fuses better — use stack_cols there."""
     return jnp.stack(cols, axis=0).T
 
 

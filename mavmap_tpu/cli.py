@@ -19,7 +19,7 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="mavmap_tpu",
-        description="TPU-native sequential structure-from-motion",
+        description="sequential structure-from-motion on an accelerator",
     )
     # Paths (mapper.cc:624-660).
     p.add_argument("--input-path", required=True)
@@ -95,7 +95,7 @@ def build_parser():
                         "bound for inlier ratios >= 0.39 (5-pt) / 0.31 "
                         "(P3P); below that the reference runs its own "
                         "1000/500-trial caps anyway, so coverage is "
-                        "equivalent and batched trials are ~free on TPU; "
+                        "equivalent and batched trials run in parallel; "
                         "extra trials only ever improve the best model")
     p.add_argument("--ransac-max-reproj-error", type=float, default=4.0)
     p.add_argument("--tri-max-reproj-error", type=float, default=4.0)
@@ -187,10 +187,6 @@ def build_parser():
     p.add_argument("--control-point-data-path", default=None)
     p.add_argument("--filter-max-error", type=float, default=0.0)
 
-    p.add_argument("--matcher-backend", default="auto",
-                   choices=("auto", "xla", "pallas"),
-                   help="descriptor-matcher kernel: auto = fused Pallas on "
-                        "TPU (128-aligned capacities), XLA elsewhere")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--debug", action="store_true",
                    help="print per-frame gate diagnostics")
@@ -302,9 +298,8 @@ def main(argv=None):
     if adaptive_det is None and not args.reference_cache_path:
         # Pipelined feature extraction: decode/npz-write on worker threads
         # while the device detects other frames — the mapper's lazy
-        # extract-on-miss serializes PNG decode (~20 ms), the detect
-        # dispatch round-trip, AND the cache write per frame (measured
-        # ~150 ms/frame of pixels->poses wall time at 100 images).
+        # extract-on-miss serializes PNG decode, the detect dispatch, AND
+        # the cache write per frame.
         # Skipped under the ADAPTIVE detector: its cross-frame per-cell
         # thresholds are stateful and order-dependent.
         lo = max(args.start_image_idx, 0)
@@ -396,7 +391,6 @@ def main(argv=None):
         process_prev_prev=args.process_prev_prev,
         verbose=not args.quiet,
         refine_camera_params=args.refine_camera_params,
-        matcher_backend=args.matcher_backend,
         checkpoint_period=args.checkpoint_period,
         checkpoint_path=args.save_map,
         debug=args.debug,

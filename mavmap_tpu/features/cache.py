@@ -1,6 +1,6 @@
 """On-disk feature cache with parameter-change invalidation.
 
-TPU-native counterpart of reference src/base2d/feature_cache.{h,cc}: the
+Counterpart of reference src/base2d/feature_cache.{h,cc}: the
 reference writes `<name>-keypoints.bin` / `-descriptors.bin` raw dumps plus
 a `-params.ini` that auto-invalidates the cache whenever any detection
 option changes (feature_cache.cc:53-110,126-162) and a `-metadata.ini` with

@@ -1,12 +1,13 @@
 """On-device SURF-style feature detection + description in pure JAX.
 
-TPU-native counterpart of reference src/base2d/feature.{h,cc}
+Counterpart of reference src/base2d/feature.{h,cc}
 (AdaptiveSURF). The reference uses OpenCV's integral-image box-filter SURF
 with a per-cell adaptive Hessian threshold (feature.cc:180-309). Integral-
-image tricks are a CPU optimization; on TPU the idiomatic formulation is:
+image tricks are a CPU optimization; on an accelerator the idiomatic
+formulation is:
 
-  - scale space via separable Gaussian(-derivative) convolutions (conv =
-    MXU work, fused by XLA);
+  - scale space via separable Gaussian(-derivative) convolutions (banded
+    matmuls, fused by XLA);
   - determinant-of-Hessian response det = Lxx Lyy - (0.9 Lxy)^2 per scale
     (the classic SURF response, Bay et al.);
   - 3x3x3 non-max suppression entirely as tensor ops;
@@ -47,11 +48,10 @@ def _band_matrix(kern, n):
     onto the edge columns). Built in numpy at TRACE time (kernels are
     static), embedded as a jit constant.
 
-    Why a matmul and not lax.conv: XLA lowers single-channel NCHW convs to
-    VPU sliding windows (~1.5 GFLOP/s measured — the 72 pyramid convs were
-    186 ms/frame, the ENTIRE detector budget); a dense (n, n) banded
-    matmul runs on the MXU instead, and the zero band padding is free
-    FLOPs the MXU was idling on anyway."""
+    Why a matmul and not lax.conv: the matmul unit takes the dense (n, n)
+    banded product at full rate, where a single-channel conv lowers to
+    sliding windows. Whether separable lax.conv_general_dilated beats it
+    on the GPU is ROADMAP S8."""
     r = (len(kern) - 1) // 2
     B = np.zeros((n, n), np.float64)
     cols = np.arange(n)
@@ -154,8 +154,8 @@ def detect_and_describe(
     # full-resolution response (second derivatives pick up (2^o)^2 each
     # from the coordinate change, so det gains 16^o — exactly the missing
     # (2^o)^4 of the effective sigma's normalization). A full-resolution
-    # pyramid needs 123-tap kernels at the top octave, which both wastes
-    # compute and drives the TPU conv compiler into the weeds.
+    # pyramid needs 123-tap kernels at the top octave, which wastes
+    # compute.
     base_sigmas = [1.6 * (2.0 ** (l / num_octave_layers))
                    for l in range(num_octave_layers)]
     sigmas = []          # effective full-res sigma per scale index
@@ -303,11 +303,10 @@ def detect_and_describe(
 def _grad_sampler(gx, gy):
     """Bilinear sampler of BOTH gradient images at shared float coords.
 
-    The TPU's dynamic-gather kernel costs ~6.6 ns per INDEX regardless of
-    row width (measured: a 400k-element scalar take = 2.7 ms, the entire
-    post-conv detector budget x8). Packing the 4 bilinear corners of both
-    gradient images into one (H*W, 8) table turns 8 scalar takes per
-    sample batch into ONE row take — same bytes, 1/8 the indices."""
+    Packing the 4 bilinear corners of both gradient images into one
+    (H*W, 8) table turns 8 scalar takes per sample batch into ONE row
+    take — same bytes, 1/8 the indices (a gather's cost grows with its
+    index count)."""
     H, W = gx.shape
     f1, f2 = gx.reshape(-1), gy.reshape(-1)
     # Row i: [gx(i), gx(i+1), gy(i), gy(i+1), gx(i+W), gx(i+W+1),
@@ -356,8 +355,8 @@ def _orientations(gx, gy, keypoints, sigmas, num_bins=42):
     win = max(int(round(num_bins / 6.0)), 1)  # pi/3 window in bins
     # Circular sliding-window sum as a fixed (num_bins, num_bins) circulant
     # matmul, and angle binning as a one-hot matmul: per-keypoint
-    # segment_sum (scatter) and convolve lower to serialized scatter-adds
-    # under vmap on TPU — the matmul forms ride the MXU instead.
+    # segment_sum (scatter) and convolve lower to scatter-adds under vmap;
+    # the matmul forms run as dense products instead.
     ii = jnp.arange(num_bins)
     circ = (((ii[None, :] - ii[:, None]) % num_bins) < win).astype(jnp.float32)
 
@@ -521,7 +520,13 @@ def detect_image_file(path, detector=None, **kwargs):
     feature cache can answer query_dimensions without re-decoding.
     `detector`: optional stateful AdaptiveDetector to use instead of the
     stateless path."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding image files needs Pillow (PIL), which is not "
+            "installed; install it, or map from cached features "
+            "(--cache-path / --reference-cache-path)") from e
 
     img = np.asarray(Image.open(path).convert("L"), np.float32)
     if detector is not None:

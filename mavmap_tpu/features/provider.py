@@ -1,6 +1,6 @@
 """Feature providers: fixed-capacity (keypoints, descriptors, mask) per image.
 
-The TPU pipeline wants every image's features in identical static shapes
+The device pipeline wants every image's features in identical static shapes
 (capacity F, descriptor dim D) with a validity mask — the struct-of-arrays
 + masks convention from SURVEY §7. A provider abstracts where features come
 from: the on-device detector (features/detector.py), the disk cache

@@ -1,6 +1,6 @@
 """MapStore — struct-of-arrays reconstruction state.
 
-TPU-native counterpart of reference src/fm/feature_management.{h,cc}
+Counterpart of reference src/fm/feature_management.{h,cc}
 (FeatureManager). The reference keeps 10 pointer-heavy unordered_maps
 (feature_management.h:189-230); this rebuild is struct-of-arrays over dense
 integer ids (row indices), with host-side numpy for the branchy track

@@ -1,6 +1,6 @@
 """Vocabulary tree: hierarchical k-means quantization, fully batched.
 
-TPU-native counterpart of reference src/loop/voc_tree.{h,cc}. The reference
+Counterpart of reference src/loop/voc_tree.{h,cc}. The reference
 descends a pointer-based tree per descriptor (voc_tree.cc:95-131) loaded
 from a pre-computed binary (training is outside the repo). This rebuild:
 
@@ -11,7 +11,7 @@ from a pre-computed binary (training is outside the repo). This rebuild:
     required (`train_voc_tree`); save/load as npz.
 
 Descriptors are L2-normalized float32; distances are squared L2 computed
-via the matmul identity (MXU-friendly).
+via the matmul identity (one dense product).
 """
 
 import numpy as np

@@ -1,6 +1,6 @@
 """Batched camera models: PINHOLE (code 1), OPENCV (2), CATA (3).
 
-TPU-native counterpart of reference src/base3d/camera_models.{h,cc}. The
+Counterpart of reference src/base3d/camera_models.{h,cc}. The
 reference implements each model as a C++ template dispatched by a runtime
 switch (camera_models.h:375-423); here each model is a pure jnp function
 over an (N, 2)/(N, 3) batch of points, dispatched with `jax.lax.switch` on a
@@ -216,9 +216,9 @@ def image2normalized(uv_px, model_code, params, eps=1e-12):
 def image2normalized_np(uv_px, model_code, params, eps=1e-12):
     """Host (numpy) mirror of `image2normalized` for per-frame bookkeeping.
 
-    On a remote-attached TPU the device round-trip (dispatch + pull) for
-    this tiny per-image op costs more than the whole computation; the
-    sequential mapper normalizes keypoints on host instead.
+    A device round trip (dispatch + pull) for this tiny per-image op
+    costs more than the computation; the sequential mapper normalizes
+    keypoints on host instead.
     """
     import numpy as np
 

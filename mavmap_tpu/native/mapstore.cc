@@ -1,8 +1,8 @@
 // Native map-store core: track bookkeeping for the reconstruction state.
 //
 // C++ counterpart of reference src/fm/feature_management.{h,cc}
-// (FeatureManager) — the host-side runtime component of mavmap_tpu, per the
-// build mandate that the runtime around the TPU compute path stays native.
+// (FeatureManager) — the host-side runtime component of mavmap_tpu: the
+// bookkeeping around the device compute path, kept native.
 // The semantics mirror the reference exactly (and the Python MapStore in
 // fm/map_store.py, which doubles as the executable specification):
 //   - add_correspondence creates / extends / merges tracks, keeping the

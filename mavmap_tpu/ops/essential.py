@@ -1,11 +1,11 @@
 """Batched 5-point essential-matrix solver + pose recovery.
 
-TPU-native counterpart of reference src/base3d/essential_matrix.{h,cc}.
+Counterpart of reference src/base3d/essential_matrix.{h,cc}.
 
 The reference implements Nister's solver with ~250 lines of machine-
 generated polynomial coefficients and a Gauss-Jordan elimination
 (essential_matrix_poly.h, essential_matrix.cc:24-124). This rebuild uses a
-different, TPU-first formulation — the *hidden-variable resultant* (cf.
+different, batch-first formulation — the *hidden-variable resultant* (cf.
 Kukelova et al., "Polynomial eigenvalue solutions to the 5-pt and 6-pt
 relative pose problems", BMVC 2008):
 
@@ -306,7 +306,7 @@ def solve_essential_5pt(points1, points2, num_dk_iters=60, imag_tol=1e-2):
     D = _epipolar_design(points1, points2)  # (S, 9)
     # Nullspace: right singular vectors of the 4 smallest singular values.
     # Full SVD of the 5x9 design (not eigh of D^T D, which squares the
-    # condition number — decisive for f32 on TPU).
+    # condition number — decisive in f32).
     _, _, Vt = jnp.linalg.svd(D, full_matrices=True)
     basis = Vt[-4:].reshape(4, 3, 3)  # E1..E4
 

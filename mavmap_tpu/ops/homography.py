@@ -1,6 +1,6 @@
 """4-point DLT homography estimation (degeneracy gate for view pairs).
 
-TPU-native counterpart of reference src/base3d/projective_transform.{h,cc}.
+Counterpart of reference src/base3d/projective_transform.{h,cc}.
 Used only to reject image pairs with too little viewpoint change: if too
 many matches fit a homography the pair is near-degenerate for two-view
 geometry (reference sfm/sequential_mapper.cc:116-158).
@@ -24,8 +24,8 @@ def solve_homography(src, dst):
     rows2 = jnp.stack([zero, zero, zero, u, v, one, -u * y, -v * y, -y], axis=-1)
     A = jnp.concatenate([rows1, rows2], axis=0)  # (2S, 9)
     # Fix h33 = 1 and solve the 8x8 normal equations directly — a batched
-    # LU solve instead of a 9x9 eigendecomposition (iterative and ~10x
-    # slower on TPU). The h33 = 0 configurations this excludes (plane
+    # LU solve instead of a 9x9 eigendecomposition (iterative, and far
+    # slower batched). The h33 = 0 configurations this excludes (plane
     # through the camera center) cannot pass the gate's inlier test anyway;
     # a singular sample yields non-finite H and is masked out.
     AtA = A.T @ A

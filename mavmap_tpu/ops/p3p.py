@@ -1,6 +1,6 @@
 """Batched perspective-3-point (P3P) absolute pose solver.
 
-TPU-native counterpart of reference src/base3d/p3p.{h,cc} (Gao et al.
+Counterpart of reference src/base3d/p3p.{h,cc} (Gao et al.
 analytic P3P). This rebuild uses the classical Grunert law-of-cosines
 reduction (cf. Haralick et al. 1994 review): unknown depths s1, s2 = u s1,
 s3 = v s1 satisfy two quadratics in u with v-dependent coefficients; their
@@ -74,7 +74,7 @@ def solve_p3p(points2D, points3D):
     )
 
     # Closed-form Ferrari quartic: one fused elementwise block instead of
-    # 40 sequential Durand-Kerner steps (pure launch latency on TPU); the
+    # 40 sequential Durand-Kerner steps (pure launch latency); the
     # Newton polish below supplies the final accuracy either way.
     v, real_mask = solve_quartic_real(quartic)  # (4,) roots in v
 
@@ -126,7 +126,7 @@ def solve_p3p(points2D, points3D):
 
     # Rigid alignment of EXACTLY 3 corresponding points is closed-form:
     # map the world triad onto the camera triad (no SVD — batched 3x3 SVD
-    # Umeyama was the latency hot spot of the whole P3P RANSAC on TPU; the
+    # Umeyama was the latency hot spot of the whole P3P RANSAC; the
     # reference uses Eigen's umeyama, p3p.cc:127-142, which is fine on CPU).
     Bw = triad(P)
 

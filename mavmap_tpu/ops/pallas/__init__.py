@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot ops."""
+"""Pallas kernels for the GPU (Triton route)."""

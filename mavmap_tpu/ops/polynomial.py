@@ -1,15 +1,14 @@
 """Batched polynomial evaluation and root finding.
 
-TPU-native counterpart of reference src/util/math.{h,cc} (`poly_eval`,
+Counterpart of reference src/util/math.{h,cc} (`poly_eval`,
 `poly_solve` — a Durand-Kerner complex root solver, math.cc:52-87). The
 rebuild keeps the Durand-Kerner scheme because it is branch-free, has a
-fixed iteration count, and batches perfectly on the VPU — unlike
-companion-matrix eigendecomposition, which XLA:TPU does not support for
-nonsymmetric matrices.
+fixed iteration count, and batches perfectly — unlike companion-matrix
+eigendecomposition, which XLA supports for nonsymmetric matrices only on
+the CPU.
 
 Complex arithmetic is implemented explicitly on (re, im) float pairs: the
-TPU backend in this environment does not implement complex dtypes, and the
-hand-rolled form also keeps everything in vectorizable f32 lanes.
+hand-rolled form keeps everything in vectorizable f32 lanes.
 
 Coefficient convention: **ascending** — ``p(z) = sum_k coeffs[..., k] z^k``.
 """
@@ -133,7 +132,7 @@ def solve_quartic_real(coeffs):
     Branch-free resolvent-cubic + two-quadratics factorization — ~40
     elementwise ops total, no iteration. This replaces Durand-Kerner for
     quartic minimal solvers (P3P): DK's fixed 40-iteration fori_loop is a
-    long chain of tiny sequential VPU ops, pure latency on TPU, while this
+    long chain of tiny sequential ops, pure launch latency, while this
     is one fused elementwise block. Callers that need tighter roots polish
     with Newton on their original constraint system (ops/p3p.py does).
     """

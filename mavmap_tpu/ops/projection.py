@@ -1,6 +1,6 @@
 """Projection-matrix utilities, reprojection errors, depths.
 
-TPU-native counterpart of reference src/base3d/projection.{h,cc}. A pose is
+Counterpart of reference src/base3d/projection.{h,cc}. A pose is
 the pair ``(rvec, tvec)`` mapping world -> camera: ``x_cam = R x_w + t``.
 ``proj`` denotes the (..., 3, 4) matrix ``[R | t]``.
 

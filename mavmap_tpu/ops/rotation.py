@@ -1,6 +1,6 @@
 """Rotation utilities: angle-axis (rvec) <-> matrix, Euler <-> matrix.
 
-TPU-native counterpart of the reference's rotation helpers
+Counterpart of the reference's rotation helpers
 (reference: src/base3d/projection.cc:12-55). Conventions match the
 reference exactly:
 

@@ -1,6 +1,6 @@
 """7-DoF similarity transform (Umeyama) + pose/point transforms.
 
-TPU-native counterpart of reference src/base3d/similarity_transform.{h,cc}:
+Counterpart of reference src/base3d/similarity_transform.{h,cc}:
 used for sub-map merging and GCP geo-registration. The minimal solver is
 closed-form Umeyama over (S >= 3) 3-D point pairs; the wrapper transforms
 points and remaps (rvec, tvec) world->cam poses under the similarity.

@@ -1,6 +1,6 @@
 """Batched DLT triangulation + triangulation angles.
 
-TPU-native counterpart of reference src/base3d/triangulation.{h,cc}. The
+Counterpart of reference src/base3d/triangulation.{h,cc}. The
 reference loops over points with OpenMP (triangulation.cc:53-98); here the
 whole batch is one SVD of shape (N, 4, 4) that XLA maps across the chip.
 
@@ -36,8 +36,8 @@ def nullvec4(A):
     (..., 4). Closed form: the cofactor cross product of each row triple is
     exactly orthogonal to those 3 rows; the max-norm candidate is the best
     conditioned one. ~200 flops/point, fully fused elementwise — batched
-    4x4 SVD on TPU is an iterative Jacobi sweep costing milliseconds per
-    1k points. (Not eigh of A^T A either: squaring the condition number is
+    4x4 SVD is an iterative Jacobi sweep, far slower per point. (Not eigh
+    of A^T A either: squaring the condition number is
     fatal in f32 for small-parallax pairs.)"""
     triples = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
     cands = jnp.stack(

@@ -1,11 +1,11 @@
 """Distributed bundle adjustment over a jax.sharding.Mesh.
 
-The TPU-native replacement for the reference's Ceres SPARSE_SCHUR CPU
+The replacement for the reference's Ceres SPARSE_SCHUR CPU
 threading (bundle_adjustment.cc:554-569), following SURVEY §7: shard the
 OBSERVATIONS and 3-D POINTS across devices (they dominate problem size),
 replicate the camera/pose parameters (small), and reduce the Schur
-complement of the camera system with `psum` over the mesh axis — ICI
-within a slice, DCN across hosts.
+complement of the camera system with `psum` over the mesh axis (NVLink
+between the cards of one host, the network across hosts).
 
 Partitioning is by 3-D point: every observation and every Schur
 co-observation pair of a point lives on exactly ONE shard, so the
@@ -117,8 +117,7 @@ def partition_problem(
     return stacked, new_index, per_shard
 
 
-def _local_normal_terms(prob: BAProblem, poses, points_d, lam, scale, axis,
-                        backend="xla"):
+def _local_normal_terms(prob: BAProblem, poses, points_d, lam, scale, axis):
     """Shard-local contributions + psum-reduced camera system pieces
     (dense path: the Schur off-diagonal from per-(point, image)
     aggregation; points are shard-disjoint so each point's whole track —
@@ -127,7 +126,7 @@ def _local_normal_terms(prob: BAProblem, poses, points_d, lam, scale, axis,
 
     I = poses.shape[0]
     U, Vinv, bp, G, T, g_red = _assemble_blocks(
-        prob, poses, points_d, lam, scale, psum_axis=axis, backend=backend
+        prob, poses, points_d, lam, scale, psum_axis=axis
     )
 
     # G/T are flat (O, 18) row-major 6x3 blocks (ba/colmath.py convention).
@@ -156,8 +155,7 @@ def _dist_cost(prob: BAProblem, poses, points_d, scale, axis):
 
 
 def _dist_lm_loop(prob: BAProblem, scale, lambda_init, max_iters, axis,
-                  solver="dense", cg_max_iters=100, cg_tol=1e-3,
-                  backend="xla"):
+                  solver="dense", cg_max_iters=100, cg_tol=1e-3):
     I = prob.poses.shape[0]
 
     def lm_step(poses, points, lam, rel_prev):
@@ -173,17 +171,16 @@ def _dist_lm_loop(prob: BAProblem, scale, lambda_init, max_iters, axis,
                 jnp.clip(jnp.sqrt(rel_prev) * 0.3, jnp.float32(cg_tol),
                          jnp.float32(3e-2)))
             return _lm_step_cg(prob, poses, points, lam, scale,
-                               cg_max_iters, cg_tol_eff, psum_axis=axis,
-                               backend=backend)
+                               cg_max_iters, cg_tol_eff, psum_axis=axis)
         S, g_red, G, Vinv, bp = _local_normal_terms(
-            prob, poses, points, lam, scale, axis, backend=backend
+            prob, poses, points, lam, scale, axis
         )
         free = prob.pose_free.reshape(I * 6)
         Sd = S.transpose(0, 2, 1, 3).reshape(I * 6, I * 6)
         Sd = Sd * free[:, None] * free[None, :] + jnp.diag(1.0 - free)
         gd = g_red.reshape(I * 6) * free
         dc = -jnp.linalg.solve(Sd, gd).reshape(I, 6) * prob.pose_free
-        dp = _backsub_points(prob, Vinv, bp, G, dc, backend=backend)
+        dp = _backsub_points(prob, Vinv, bp, G, dc)
         return dc, dp
 
     def cond(state):
@@ -219,7 +216,7 @@ def _dist_lm_loop(prob: BAProblem, scale, lambda_init, max_iters, axis,
 def dist_bundle_adjust(mesh, stacked_prob: BAProblem, scale=1.0,
                        lambda_init=1e-4, max_iters=20, axis="obs",
                        solver="auto", cg_max_iters=100, cg_tol=1e-3,
-                       per_shard=None, backend="auto"):
+                       per_shard=None):
     """Run the distributed LM loop over `mesh` (1-D, axis name `axis`).
 
     stacked_prob: BAProblem from `partition_problem` — obs/pair arrays have
@@ -241,22 +238,15 @@ def dist_bundle_adjust(mesh, stacked_prob: BAProblem, scale=1.0,
         ncams = stacked_prob.poses.shape[-2]
         solver = "cg" if ncams >= DENSE_SOLVER_MAX_CAMERAS else "dense"
 
-    if backend == "auto":
-        # Pallas segment-reduction kernels when the MESH devices are TPU
-        # (the mesh platform, not the default backend, decides where the
-        # shard_map executables run).
-        backend = ("pallas"
-                   if mesh.devices.flatten()[0].platform == "tpu"
-                   else "xla")
     fn = _dist_ba_fn(mesh, axis, solver, float(scale), float(lambda_init),
                      int(max_iters), int(cg_max_iters), float(cg_tol),
-                     int(per_shard), backend)
+                     int(per_shard))
     return fn(stacked_prob)
 
 
 @lru_cache(maxsize=32)
 def _dist_ba_fn(mesh, axis, solver, scale, lambda_init, max_iters,
-                cg_max_iters, cg_tol, per_shard, backend="xla"):
+                cg_max_iters, cg_tol, per_shard):
     """Cached jit(shard_map) wrapper: jit handles shape polymorphism; this
     cache keeps one traced wrapper per (mesh, solver config) so repeated
     pipeline global BAs don't re-trace the whole LM loop."""
@@ -267,7 +257,6 @@ def _dist_ba_fn(mesh, axis, solver, scale, lambda_init, max_iters,
         poses, points, cost, init_cost, it = _dist_lm_loop(
             prob_local, jnp.float32(scale), lambda_init, max_iters, axis,
             solver=solver, cg_max_iters=cg_max_iters, cg_tol=cg_tol,
-            backend=backend,
         )
         # Points: each shard owns rows [rank*per, (rank+1)*per). Zero the
         # others and psum -> full array (then output replicated).

@@ -23,7 +23,7 @@ from jax.sharding import PartitionSpec as P
 
 
 @lru_cache(maxsize=64)
-def _pairs_fn(mesh, p3p_trials, matcher):
+def _pairs_fn(mesh, p3p_trials):
     from ..sfm.kernels import register_view_pairs
 
     ax = mesh.axis_names[0]
@@ -33,7 +33,7 @@ def _pairs_fn(mesh, p3p_trials, matcher):
         return register_view_pairs(
             keys, kpp, dp, mp, npn, kpc, dc, mc, ncn, xyz, ht, st, rv, tv,
             kparams, codes, ratio, maxd, nts,
-            p3p_trials=p3p_trials, matcher=matcher,
+            p3p_trials=p3p_trials,
         )
 
     # check_vma off: the register kernels carry replicated scalars through
@@ -48,19 +48,19 @@ def _pairs_fn(mesh, p3p_trials, matcher):
 
 def dist_register_view_pairs(mesh, keys, kpp, dp, mp, npn, kpc, dc, mc, ncn,
                              xyz, ht, st, rv, tv, kparams, codes,
-                             ratio, maxd, nts, *, p3p_trials, matcher):
+                             ratio, maxd, nts, *, p3p_trials):
     """register_view_pairs with the pair axis sharded over `mesh`.
 
     All leading-B arrays split across devices; `ratio`/`maxd` replicate.
     B must be divisible by the mesh size — callers pad to a multiple.
     """
-    return _pairs_fn(mesh, p3p_trials, matcher)(
+    return _pairs_fn(mesh, p3p_trials)(
         keys, kpp, dp, mp, npn, kpc, dc, mc, ncn, xyz, ht, st, rv, tv,
         kparams, codes, ratio, maxd, nts)
 
 
 @lru_cache(maxsize=64)
-def _batch_fn(mesh, p3p_trials, matcher):
+def _batch_fn(mesh, p3p_trials):
     from ..sfm.kernels import register_view_batch
 
     ax = mesh.axis_names[0]
@@ -70,7 +70,7 @@ def _batch_fn(mesh, p3p_trials, matcher):
         return register_view_batch(
             keys, kpp, dp, mp, npn, kpc, dc, mc, ncn, xyz, ht, st, rv, tv,
             kparams, codes, ratio, maxd, nt,
-            p3p_trials=p3p_trials, matcher=matcher,
+            p3p_trials=p3p_trials,
         )
 
     return jax.jit(jax.shard_map(
@@ -82,10 +82,10 @@ def _batch_fn(mesh, p3p_trials, matcher):
 
 def dist_register_view_batch(mesh, keys, kpp, dp, mp, npn, kpc, dc, mc, ncn,
                              xyz, ht, st, rv, tv, kparams, codes,
-                             ratio, maxd, nt, *, p3p_trials, matcher):
+                             ratio, maxd, nt, *, p3p_trials):
     """register_view_batch (shared current image) with the candidate axis
     sharded over `mesh`; the current image's features replicate."""
-    return _batch_fn(mesh, p3p_trials, matcher)(
+    return _batch_fn(mesh, p3p_trials)(
         keys, kpp, dp, mp, npn, kpc, dc, mc, ncn, xyz, ht, st, rv, tv,
         kparams, codes, ratio, maxd, nt)
 

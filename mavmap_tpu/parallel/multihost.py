@@ -1,16 +1,17 @@
 """Multi-host execution: jax.distributed bring-up + global mesh helpers.
 
 The reference is a single process (SURVEY §5.8 — its only parallelism is
-OpenMP); the TPU-native equivalent of "scale beyond one machine" is
-jax.distributed across hosts with XLA collectives riding ICI within a
-slice and DCN across slices. This module owns the bring-up and the mesh
+OpenMP); here "scale beyond one machine" is jax.distributed across hosts,
+with XLA collectives over NVLink between the cards of a host and over the
+network between hosts. This module owns the bring-up and the mesh
 construction used by the distributed BA / matching paths:
 
-  - `init_multihost()`: idempotent jax.distributed.initialize wrapper,
-    driven by explicit args or the standard env (JAX on TPU pods
-    auto-discovers coordinator/process_id; on CPU/GPU fleets pass them).
-  - `global_mesh(axis)`: 1-D mesh over ALL devices of all processes, the
-    shape dist_bundle_adjust / dist_match_pairs consume.
+  - `init_multihost()`: idempotent jax.distributed.initialize wrapper;
+    the caller passes the coordinator address ("host:port"), the process
+    count and this process's id.
+  - `global_mesh(axis)`: flat 1-D mesh over ALL devices of all processes
+    (the cards of a host are all-to-all, so no device topology shapes
+    it), the shape dist_bundle_adjust / dist_match_pairs consume.
   - `host_local_to_global(mesh, arrs)`: assemble a global sharded array
     from per-host shards (jax.make_array_from_process_local_data), so each
     host feeds only its own observation shards to the BA without ever
@@ -32,9 +33,8 @@ def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None, local_device_ids=None):
     """Initialize jax.distributed (idempotent; no-op for single process).
 
-    On TPU pods all arguments are auto-discovered from the environment; on
-    other platforms pass coordinator_address ("host:port"), num_processes
-    and process_id explicitly. Returns (process_index, process_count).
+    Pass coordinator_address ("host:port"), num_processes and process_id
+    explicitly. Returns (process_index, process_count).
     """
     global _initialized
     if not _initialized and (coordinator_address is not None

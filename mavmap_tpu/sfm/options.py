@@ -22,12 +22,9 @@ class SequentialMapperOptions:
     tri_min_angle: float = 2.0              # degrees (mapper.cc: init 10, seq 1)
     min_track_len: int = 2                  # (mapper.cc default: 3)
 
-    # TPU-native knobs (no reference equivalent): fixed RANSAC trial counts
+    # Batched-RANSAC knobs (no reference equivalent): fixed trial counts
     # replacing the adaptive-early-stop loop.
     essential_ransac_trials: int = 512
     p3p_ransac_trials: int = 512
     loop_detection_num_images: int = 30
     max_depth: float = 100.0                # cheirality depth bound
-    # Matcher backend: 'auto' picks the fused Pallas kernel on TPU when the
-    # feature capacity is 128-aligned, the XLA path otherwise.
-    matcher_backend: str = "auto"

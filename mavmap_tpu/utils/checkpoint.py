@@ -2,8 +2,8 @@
 
 The reference has no checkpointing beyond the feature cache (SURVEY §5.4);
 this adds full save/restore of the reconstruction state (poses, points,
-tracks, pair graph) so long mapping runs survive preemption — a requirement
-for production TPU fleets. Format: one .npz per checkpoint.
+tracks, pair graph) so long mapping runs survive preemption. Format: one
+.npz per checkpoint.
 """
 
 import json

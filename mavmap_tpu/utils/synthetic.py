@@ -147,6 +147,42 @@ def make_multi_camera_scene(num_images=12, seed=0, **kwargs):
     return scene
 
 
+def make_ba_scene(num_images, num_points, obs_per_image, pixel_noise=0.3,
+                  seed=0):
+    """Synthetic global-BA problem at a chosen scale: `num_images` PINHOLE
+    cameras along a strip, each observing `obs_per_image` points drawn at
+    random from a `num_points` cloud (track length ~ num_images *
+    obs_per_image / num_points). Returns (poses (I, 6) world->cam, points
+    (P, 3), cam_params (1, 9), obs_image, obs_point, obs_uv, pose_states),
+    ground truth without perturbation."""
+    import jax.numpy as jnp
+    from ..ops.rotation import rotmat_from_rvec
+
+    rng = np.random.default_rng(seed)
+    I, P = num_images, num_points
+    K = np.zeros((1, 9), np.float32)
+    K[0, :4] = [700.0, 700.0, 400.0, 300.0]
+    X = (rng.normal(size=(P, 3)) * np.array([40, 40, 4])
+         + np.array([0, 0, 30])).astype(np.float32)
+    i = np.arange(I)
+    poses = np.concatenate(
+        [rng.normal(size=(I, 3)) * 0.05,
+         np.stack([i * 0.4, (i % 7) * 0.5, np.zeros(I)], axis=1)],
+        axis=1).astype(np.float32)
+    obs_image = np.repeat(i, obs_per_image).astype(np.int32)
+    obs_point = np.concatenate(
+        [rng.choice(P, obs_per_image, replace=False) for _ in range(I)]
+    ).astype(np.int32)
+    R = np.asarray(rotmat_from_rvec(jnp.asarray(poses[:, :3])))
+    Xc = (np.einsum("oij,oj->oi", R[obs_image], X[obs_point])
+          + poses[obs_image, 3:])
+    uv = np.asarray(cam.world2image(jnp.asarray(Xc, jnp.float32),
+                                    cam.PINHOLE, jnp.asarray(K[0])))
+    uv = (uv + rng.normal(size=uv.shape) * pixel_noise).astype(np.float32)
+    states = [1, 2] + [0] * (I - 2)  # BA_POSE_FIXED, BA_POSE_FIXED_X, free
+    return poses, X, K, obs_image, obs_point, uv, states
+
+
 def imu_priors(scene: SyntheticScene, noise=0.01, seed=0):
     """Per-image IMU rotation priors: GT rvecs + noise (the 'roll/pitch/yaw
     from imagedata.txt' pathway of the reference)."""

@@ -2,7 +2,7 @@
 
 The reference's Timer is the system's only observability hook
 (timer.h:17-33); this version adds stage accumulation and an optional
-jax.profiler trace context for TPU timeline capture.
+jax.profiler trace context for device timeline capture.
 """
 
 import contextlib
@@ -65,7 +65,7 @@ class StageTimers:
 
 @contextlib.contextmanager
 def device_trace(log_dir):
-    """jax.profiler trace context (TPU timeline -> TensorBoard)."""
+    """jax.profiler trace context (device timeline -> TensorBoard)."""
     import jax
 
     jax.profiler.start_trace(log_dir)

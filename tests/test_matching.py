@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from mavmap_tpu.ops import matching
 
@@ -111,3 +112,95 @@ def test_batch_match_counts_pairs_matches_per_query(rng):
     for (a, b), n in zip(pairs, got):
         ref = m._batch_match_counts(a, [b], opts)
         assert int(n) == int(ref[0]), (a, b, n, ref)
+
+
+# ------------------------------------------------ float64 reference checks
+#
+# The matcher against the plain float64 2-NN / ratio / cross-check
+# reference of chip_smoke.py (which runs the same comparison on the card):
+# identical match sets and validity masks.
+
+
+def _pair(rng, n1, n2, noise=0.05):
+    d1 = _make_descriptors(rng, n1)
+    take = min(n1, n2)
+    d2 = np.concatenate([
+        d1[rng.permutation(n1)[:take]]
+        + rng.normal(size=(take, 128)).astype(np.float32) * noise,
+        rng.normal(size=(n2 - take, 128)).astype(np.float32),
+    ])
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    return d1, d2, rng.random(n1) > 0.1, rng.random(n2) > 0.1
+
+
+@pytest.mark.parametrize("n1,n2", [(256, 256), (2048, 2048), (200, 200),
+                                   (130, 70), (96, 257)])
+def test_matches_float64_reference(n1, n2):
+    """Masked pairs: square, 2048-wide, and ragged capacities."""
+    from chip_smoke import np_match
+
+    rng = np.random.default_rng(n1 * 7 + n2)
+    d1, d2, m1, m2 = _pair(rng, n1, n2)
+    ref_m, ref_ok = np_match(d1, d2, m1, m2)
+    mt, ok = matching.match_brute_force(*map(jnp.asarray, (d1, d2, m1, m2)))
+    assert mt.shape == (n1,)
+    np.testing.assert_array_equal(np.asarray(mt), ref_m)
+    np.testing.assert_array_equal(np.asarray(ok), ref_ok)
+    assert ref_ok.sum() > 0.5 * min(n1, n2)
+
+
+def test_pixel_prefilter_matches_float64_reference():
+    from chip_smoke import np_match
+
+    rng = np.random.default_rng(5)
+    F = 256
+    d1, d2, m1, m2 = _pair(rng, F, F)
+    kp1 = rng.uniform(0, 800, size=(F, 2)).astype(np.float32)
+    kp2 = rng.uniform(0, 800, size=(F, 2)).astype(np.float32)
+    ref_m, ref_ok = np_match(d1, d2, m1, m2, kp1, kp2, max_distance=300.0)
+    mt, ok = matching.match_brute_force(
+        *map(jnp.asarray, (d1, d2, m1, m2, kp1, kp2)), max_distance=300.0)
+    np.testing.assert_array_equal(np.asarray(mt), ref_m)
+    np.testing.assert_array_equal(np.asarray(ok), ref_ok)
+    unfiltered = np_match(d1, d2, m1, m2)[1].sum()
+    assert 0 < ref_ok.sum() < unfiltered  # the prefilter really rejects
+
+
+def test_vmapped_batch_matches_float64_reference():
+    """The batched form the closure sweep and back-fill use."""
+    import jax
+    from chip_smoke import np_match
+
+    rng = np.random.default_rng(9)
+    pairs = [_pair(rng, 128, 128) for _ in range(3)]
+    stacked = [jnp.asarray(np.stack([p[k] for p in pairs])) for k in range(4)]
+    mt, ok = jax.vmap(matching.match_brute_force)(*stacked)
+    for b, p in enumerate(pairs):
+        ref_m, ref_ok = np_match(*p)
+        np.testing.assert_array_equal(np.asarray(mt)[b], ref_m)
+        np.testing.assert_array_equal(np.asarray(ok)[b], ref_ok)
+
+
+def test_two_view_init_matches_float64_reference():
+    """two_view_init's packed match and validity columns equal the
+    reference match set."""
+    import jax
+    from chip_smoke import np_match
+    from mavmap_tpu.sfm.kernels import two_view_init
+
+    rng = np.random.default_rng(3)
+    F = 128
+    d1, d2, m1, m2 = _pair(rng, F, F)
+    kp1 = rng.uniform(0, 800, size=(F, 2)).astype(np.float32)
+    kp2 = kp1 + rng.normal(size=(F, 2)).astype(np.float32) * 8.0
+    rows, _ = two_view_init(
+        jax.random.PRNGKey(3),
+        *map(jnp.asarray, (kp1, d1, m1, (kp1 - 400.0) / 700.0,
+                           kp2, d2, m2, (kp2 - 400.0) / 700.0)),
+        jnp.float32(0.9), jnp.float32(1e9), jnp.float32(4.0 / 700.0),
+        essential_trials=64, hom_trials=32)
+    ref_m, ref_ok = np_match(d1, d2, m1, m2)
+    rows = np.asarray(rows)
+    np.testing.assert_array_equal(rows[:, 1] > 0.5, ref_ok)
+    np.testing.assert_array_equal(rows[ref_ok, 0].astype(np.int64),
+                                  ref_m[ref_ok])
